@@ -1,6 +1,6 @@
 """Smoothed aggregation on 2D Poisson — the 60-second tour.
 
-Host setup -> TPU-compiled solve, mirroring the reference's README
+Host setup -> device-compiled solve, mirroring the reference's README
 example ([R] upstream README usage, SURVEY.md §6).
 """
 import os as _os

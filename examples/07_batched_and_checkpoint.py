@@ -53,28 +53,19 @@ for j in range(K):
     print(f"lane {j}: {len(res[j]) - 1:2d} iters, "
           f"true relres {true[j]:.2e}")
 
-# ---- interleaved fast path (round 5) ---------------------------------
-# Lane-aligned DEVICE-BUILT hierarchies route batched f32 V+CG solves
-# through the interleaved (S, K, 128) kernels automatically — measured
-# at 2048^2 / K=8: V-cycle 1.03 ms/RHS (amortization 2.45x vs single),
-# solve to 1e-5 in 32 ms/RHS.
-from pyamg_tpu.engine import device_sa_setup, supports_interleaved
+# ---- batched solves on a device-built hierarchy ----------------------
+# The same vmapped K-major route serves device-built hierarchies.
+from pyamg_tpu.engine import device_sa_setup
 
-A2 = poisson((512, 512), format="csr")      # lane_align needs >= 512
-dsa = device_sa_setup(A2, grid=(512, 512), lane_align=True,
-                      max_coarse=400)
-print(f"interleaved fast path available: "
-      f"{supports_interleaved(dsa.hierarchy)}")
+A2 = poisson((512, 512), format="csr")
+dsa = device_sa_setup(A2, grid=(512, 512), max_coarse=400,
+                      mixed_precision=True)
 B2 = rng.random((A2.shape[0], K))
 res2 = []
-X2 = dsa.solve(B2, tol=1e-6, maxiter=60, accel="cg", residuals=res2)
+X2 = dsa.solve(B2, tol=1e-8, maxiter=60, accel="cg", precision="mixed",
+               residuals=res2)
 true2 = np.linalg.norm(B2 - A2 @ X2, axis=0) / np.maximum(
     np.linalg.norm(B2, axis=0), 1e-300)
-print("interleaved-path lanes (f32 native):",
+print("device-built lanes (mixed):",
       [f"{len(r) - 1} iters / true {t:.1e}"
        for r, t in zip(res2, true2)])
-# NOTE: f32-native CG reports the recurrence residual; its TRUE
-# residual drifts to ~1e-3 at this size on every f32 path (single,
-# vmapped, interleaved alike) — use precision='mixed' (above) when a
-# true tolerance matters.  The interleaved path is the throughput
-# option: 1.03 ms/RHS V-cycles at 2048^2 K=8.

@@ -1,23 +1,22 @@
-"""Unstructured on-device SA setup: FEM meshes without a grid (round 4).
+"""Unstructured on-device SA setup: FEM meshes without a grid.
 
 Every other device pipeline (example 06) detects a stencil GRID.  This
 one builds the SA hierarchy on device for ARBITRARY operators whose
 ordering admits bounded column windows (naturally-ordered meshes; use
-``pyamg_tpu.graph.symmetric_rcm`` first otherwise) — gather-free via
-the windowed one-hot select kernel:
+``pyamg_tpu.graph.symmetric_rcm`` first otherwise), through windowed
+selections:
 
 - strength + distance-2 Luby-MIS aggregation as elementwise functions
   of window selects,
 - tentative/smoothed P assembled column-index-wise,
 - the Galerkin RAP by banded CHAIN PROBING (multi-RHS probe vectors
-  through the fused kernels recover exact coarse columns).
+  through K-lane windowed applies recover exact coarse columns).
 
 Two aggregation modes:
 - 'standard'   reference-parity granularity (aggregates ~3 nodes);
 - 'aggressive' radius-2 aggregates (~7x coarsening): fewer, smaller
-  coarse levels — measured at 640k dofs on TPU: warm setup 5.2 s vs
-  26 s standard vs ~29 s host setup + compile, V-cycle 5.5 vs 9.9 ms,
-  at ~2x the Krylov iterations.
+  coarse levels, cheaper setup and V-cycles at ~2x the Krylov
+  iterations.
 
 Run: python examples/08_unstructured_device_setup.py
 """

@@ -7,7 +7,7 @@ and for nonsymmetric advection a truncated-Neumann ideal restriction
 (nAIR).  Mirrors the reference's `ruge_stuben_solver` / `air_solver`
 on arbitrary CSR (SURVEY.md §2.2 S:111-114).
 
-Run: python examples/09_unstructured_classical.py   (CPU or TPU)
+Run: python examples/09_unstructured_classical.py   (CPU or GPU)
 """
 
 import os as _os

@@ -1,14 +1,16 @@
-"""pyamg_tpu — a TPU-native algebraic multigrid framework.
+"""pyamg_tpu — an algebraic multigrid framework in JAX for the GPU.
 
 A from-scratch rebuild of the capability surface of the reference AMG
-library (ben-s-southworth/pyamg; see SURVEY.md) designed TPU-first:
+library (ben-s-southworth/pyamg; see SURVEY.md) with its solve phase on
+an accelerator:
 
 - **setup phase** (hierarchy construction) runs as vectorized host passes
   (NumPy/SciPy + the C++ amg_core extension for serial-semantics
   algorithms), exactly reproducing the reference's numerics;
 - **solve phase** (cycling + Krylov) compiles to a single jitted XLA
-  program over a static level pytree — padded ELL/BSR operators, Pallas
-  SpMV kernels, lax.while_loop Krylov — via :mod:`pyamg_tpu.engine`;
+  program over a static level pytree — DIA, block-DIA, windowed-ELL and
+  dense operators in plain XLA, lax.while_loop Krylov — via
+  :mod:`pyamg_tpu.engine`;
 - **distribution** uses jax.sharding Mesh row partitions with halo
   exchange collectives via :mod:`pyamg_tpu.parallel`.
 
@@ -64,7 +66,8 @@ def test():  # pragma: no cover
 
 
 def show_config():  # pragma: no cover
-    """Print backend/runtime diagnostics (TPU availability, amg_core)."""
+    """Print backend/runtime diagnostics (JAX backend and devices,
+    amg_core)."""
     import numpy as _np
     import scipy as _sp
 
@@ -76,7 +79,8 @@ def show_config():  # pragma: no cover
     try:
         import jax as _jax
 
-        print(f"  jax {_jax.__version__}, backend {_jax.default_backend()}, "
-              f"devices {_jax.device_count()}")
+        dev = _jax.devices()[0]
+        print(f"  jax {_jax.__version__}, platform {dev.platform}, "
+              f"{dev.device_kind}, devices {_jax.device_count()}")
     except Exception as exc:  # noqa: BLE001
         print(f"  jax unavailable: {exc}")

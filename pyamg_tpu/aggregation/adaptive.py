@@ -1,6 +1,6 @@
 """Adaptive smoothed aggregation (alpha-SA).
 
-TPU-native rebuild of [R] pyamg/aggregation/adaptive.py (SURVEY.md §2.2):
+Rebuild of [R] pyamg/aggregation/adaptive.py (SURVEY.md §2.2):
 bootstrap near-nullspace candidates by relaxing on A x = 0 (initial
 stage), then improve them by running the current solver on the
 homogeneous problem (general stages) — algebraically smooth error that

@@ -1,6 +1,6 @@
 """Aggregation algorithms (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/aggregation/aggregate.py backed by
+Rebuild of [R] pyamg/aggregation/aggregate.py backed by
 amg_core standard_aggregation / naive_aggregation / pairwise_aggregation
 (SURVEY.md §2.2 / §2.4).  The serial-semantics algorithms (standard,
 naive, pairwise) follow the reference's ordered-greedy behavior exactly —

@@ -1,11 +1,11 @@
 """Smoothed-aggregation solver factory (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/aggregation/aggregation.py (SURVEY.md
+Rebuild of [R] pyamg/aggregation/aggregation.py (SURVEY.md
 §2.2 / call stack §3.1).  Builds a MultilevelSolver whose per-level
 operators are scipy matrices; the heavy kernels (strength, aggregation,
 batched QR, SpGEMM Galerkin triple product) run as vectorized host passes
 during setup.  The resulting hierarchy can be compiled to a device
-(TPU-resident, jitted) solver via pyamg_tpu.engine.
+(device-resident, jitted) solver via pyamg_tpu.engine.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Pairwise (unsmoothed) aggregation solver.
 
-TPU-native rebuild of [R] pyamg/aggregation/pairwise.py (SURVEY.md §2.2):
+Rebuild of [R] pyamg/aggregation/pairwise.py (SURVEY.md §2.2):
 Notay-style repeated pairwise matching with unsmoothed tentative
 prolongators — cheap setup, modest convergence, usually Krylov-wrapped.
 """

@@ -1,6 +1,6 @@
 """Rootnode smoothed-aggregation solver.
 
-TPU-native rebuild of [R] pyamg/aggregation/rootnode.py (SURVEY.md §2.2):
+Rebuild of [R] pyamg/aggregation/rootnode.py (SURVEY.md §2.2):
 SA variant that pins an identity block at each aggregate's root node, so
 coarse dofs ARE fine dofs at the roots (point-value coarse variables),
 combined with energy-minimization prolongation smoothing.  Better for

@@ -1,6 +1,6 @@
 """Prolongation smoothers (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/aggregation/smooth.py (SURVEY.md §2.2):
+Rebuild of [R] pyamg/aggregation/smooth.py (SURVEY.md §2.2):
 turn the tentative prolongator T into a smoothed P.  Jacobi/Richardson are
 SpGEMM polynomials; energy minimization is the sparsity-constrained Krylov
 scheme (amg_core incomplete_mat_mult_* masked SpGEMM analog implemented as
@@ -136,7 +136,7 @@ def jacobi_prolongation_smoother(S, T, C, B, omega=4.0 / 3.0, degree=1,
         # per level) for the device compiler, which scales the
         # already-converted DIA of A on device: applying the factors
         # (square A-pattern DIA + one-hot tentative spread) is far
-        # cheaper on TPU than applying the fused P
+        # cheaper on the device than applying the fused P
         # (engine/hierarchy.py::_factored_transfer).
         P._sa_factor = {"dinv": dinv, "omega": omega_eff,
                         "T": sp.csr_matrix(T), "degree": int(degree)}

@@ -1,6 +1,6 @@
 """Tentative prolongator via per-aggregate QR (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/aggregation/tentative.py::fit_candidates
+Rebuild of [R] pyamg/aggregation/tentative.py::fit_candidates
 (amg_core fit_candidates, SURVEY.md §2.2).  The reference runs one small
 QR per aggregate in C++; here aggregates are bucketed by size and solved
 with *batched* NumPy QR — the same batching structure the device path

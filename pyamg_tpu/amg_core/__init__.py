@@ -1,11 +1,11 @@
 """Native (C++) setup-phase kernels.
 
-TPU-native analog of [R] pyamg/amg_core/ (SURVEY.md §2.4): the
+Analog of [R] pyamg/amg_core/ (SURVEY.md §2.4): the
 serial-semantics hot loops of the *setup* phase (RS splitting, greedy
 aggregation, sequential relaxation sweeps, two-pass interpolation) are
 implemented in C++ (amg_core.cpp), compiled on demand with g++ and bound
 via ctypes.  The *solve* phase never touches this module — it runs as
-jitted XLA/Pallas code on device.
+jitted XLA code on device.
 
 Importing names from this package returns the native function when the
 extension is available and raises ImportError otherwise; callers keep

@@ -1,6 +1,6 @@
 // Native setup-phase kernels for pyamg_tpu.
 //
-// TPU-native analog of the reference's amg_core C++ layer (SURVEY.md
+// Analog of the reference's amg_core C++ layer (SURVEY.md
 // §2.4): the serial-semantics algorithms whose ordered-greedy behavior
 // cannot be vectorized — Ruge-Stuben C/F splitting (bucket-queue
 // priority), greedy aggregation passes, and sequential relaxation

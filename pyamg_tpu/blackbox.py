@@ -1,6 +1,6 @@
 """Blackbox zero-configuration solver API.
 
-TPU-native rebuild of [R] pyamg/blackbox.py (SURVEY.md §2.3, layer L6 /
+Rebuild of [R] pyamg/blackbox.py (SURVEY.md §2.3, layer L6 /
 call stack §3.5): inspect the matrix, pick a sensible SA configuration,
 and solve — ``solve(A, b)`` just works.
 """
@@ -118,7 +118,7 @@ def solve(A, b, x0=None, tol=1e-5, maxiter=400, return_solver=False,
 
     Builds (or reuses) an SA solver and runs Krylov-accelerated cycles.
 
-    ``device=True`` (TPU-native addition, no reference counterpart):
+    ``device=True`` (an addition, no reference counterpart):
     after the host setup, the whole hierarchy is compiled into ONE jitted
     XLA program (engine.as_device_solver) and the accelerated solve runs
     device-resident — f64 outer Krylov preconditioned by the f32 cycle

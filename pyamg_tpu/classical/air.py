@@ -1,6 +1,6 @@
 """AIR — approximate ideal restriction AMG (nonsymmetric problems).
 
-TPU-native rebuild of [R] pyamg/classical/air.py (SURVEY.md §2.2 / call
+Rebuild of [R] pyamg/classical/air.py (SURVEY.md §2.2 / call
 stack §3.4) — the fork owner's signature algorithm: R built by lAIR
 (local dense solves so (RA)|_F ~ 0), P = one-point interpolation,
 F-then-C Jacobi smoothing.  Canonical use: upwind advection

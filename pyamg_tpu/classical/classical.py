@@ -1,6 +1,6 @@
 """Classical Ruge-Stuben AMG solver factory.
 
-TPU-native rebuild of [R] pyamg/classical/classical.py (SURVEY.md §2.2 /
+Rebuild of [R] pyamg/classical/classical.py (SURVEY.md §2.2 /
 call stack §3.3): strength -> C/F splitting -> interpolation ->
 R = P^T -> Galerkin RAP, per level.
 """

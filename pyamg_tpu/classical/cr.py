@@ -1,6 +1,6 @@
 """Compatible relaxation (CR) coarsening.
 
-TPU-native rebuild of [R] pyamg/classical/cr.py (SURVEY.md §2.2, (M)
+Rebuild of [R] pyamg/classical/cr.py (SURVEY.md §2.2, (M)
 confidence): measure how well relaxation alone reduces error on the
 F points (habituated / concurrent variants); points where relaxation
 stalls become C candidates.  Also ``binormalize`` row/column scaling.

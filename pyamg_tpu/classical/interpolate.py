@@ -1,6 +1,6 @@
 """Classical interpolation operators + approximate ideal restriction.
 
-TPU-native rebuild of [R] pyamg/classical/interpolate.py (SURVEY.md §2.2)
+Rebuild of [R] pyamg/classical/interpolate.py (SURVEY.md §2.2)
 backed by amg_core rs_direct_interpolation_pass1/2,
 rs_classical_interpolation_pass1/2, one_point_interpolation, and
 approx_ideal_restriction_pass1/2 (§2.4 ruge_stuben.h / air.h).

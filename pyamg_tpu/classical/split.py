@@ -1,6 +1,6 @@
 """C/F splitting algorithms (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/classical/split.py (SURVEY.md §2.2)
+Rebuild of [R] pyamg/classical/split.py (SURVEY.md §2.2)
 backed by amg_core rs_cf_splitting / cljp_naive_splitting (§2.4).
 
 Convention (reference): ``S`` is the strength matrix with row i listing

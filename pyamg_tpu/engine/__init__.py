@@ -1,4 +1,4 @@
-"""TPU solve-phase engine: jitted hierarchies, cycles, Krylov.
+"""Device solve-phase engine: jitted hierarchies, cycles, Krylov.
 
 See SURVEY.md §7: the solve phase is one jitted XLA program over a static
 level pytree.  Build with ``as_device_solver(ml)`` from any host
@@ -15,9 +15,6 @@ from .hierarchy import DeviceHierarchy, DeviceLevel, compile_hierarchy
 from .krylov import (device_bicgstab, device_cg, device_cgne,
                      device_cgnr, device_cr, device_fgmres, device_gmres,
                      device_minimal_residual, device_steepest_descent)
-from .batched_cycle import (interleaved_batched_cg,
-                            interleaved_zero_vcycle,
-                            supports_interleaved)
 from .solver import DeviceMultilevelSolver, as_device_solver
 from .unstructured_setup import device_unstructured_sa_setup
 from .unstructured_classical import (device_unstructured_rs_setup,
@@ -49,9 +46,6 @@ __all__ = [
     "EmbeddedRestrictor",
     "BlockStructuredProlongator",
     "BlockStructuredRestrictor",
-    "interleaved_batched_cg",
-    "interleaved_zero_vcycle",
-    "supports_interleaved",
     "DeviceMultilevelSolver",
     "as_device_solver",
 ]

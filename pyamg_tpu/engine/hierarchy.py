@@ -11,8 +11,8 @@ reference's per-level Python<->C++ crossings, SURVEY.md §3.2, disappear).
 
 Everything device-resident is a pytree LEAF (operators, diagonal
 inverses, colorings, masks) and the whole DeviceHierarchy is passed as a
-jit *argument* — on this backend, closure-captured device constants get
-re-uploaded per call (~28 ms each), so nothing may be captured.
+jit *argument* — closure-captured device arrays would become constants
+baked into each compiled program, so nothing may be captured.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ import jax.numpy as jnp
 from ..graph import vertex_coloring
 from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
 from ..relaxation.smoothing import rho_D_inv_A, rho_block_D_inv_A
-from ..sparse import (TransposedWindowed, WindowedELL, pad_to, pad_vector,
-                      select_operator, windowed_from_scipy)
+from ..sparse import pad_to, select_operator, windowed_from_scipy
 from ..sparse.dia import dense_from_scipy
 from ..util.linalg import approximate_spectral_radius
 from ..util.utils import get_block_diag
@@ -106,9 +105,8 @@ class DeviceHierarchy:
         # coarse_inv is stored padded (nc_pad, nc_pad) with zero rows/cols
         # beyond nc, so the padded product is exact and shape-stable.
         # precision=HIGHEST: under vmap (batched multi-RHS) this matvec
-        # becomes a matmul, and TPU's Precision.DEFAULT would run it as
-        # reduced-precision bf16 MXU passes — measured 2.8e-4 relative
-        # error on the batched V-cycle (round 3) vs 0 with HIGHEST.
+        # becomes a matmul, which at default precision may run in TF32
+        # on the GPU (~1e-3 relative error in the coarse correction).
         return jnp.dot(self.coarse_inv, bc,
                        precision=jax.lax.Precision.HIGHEST)
 
@@ -178,7 +176,7 @@ def _compile_smoother(lvl, spec, dtype, n_pad):
     if name in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr"):
         # Device NE/NR forms target the same normal equations as the
         # reference (amg_core jacobi_ne / gauss_seidel_ne/nr) but in the
-        # TPU-parallel Cimmino form: x += omega * A^T Dinv (b - A x).
+        # parallel Cimmino form: x += omega * A^T Dinv (b - A x).
         # Sequential Kaczmarz (gauss_seidel_ne/nr) has no parallel
         # equivalent that preserves ordering — substitute the Jacobi-NE/NR
         # sweep and say so (convergence-factor, not bitwise, parity).
@@ -324,7 +322,7 @@ def _compile_smoother(lvl, spec, dtype, n_pad):
         # convergence-equivalent overlapping Schwarz)
         warnings.warn(
             f"'{name}': substituting windowed overlapping Schwarz "
-            "(contiguous sliding subdomains — the gather-free TPU form)")
+            "(contiguous sliding subdomains — the gather-free device form)")
         w = int(kwargs.get("window", 16))
         s = int(kwargs.get("stride", 8))
         if w % s != 0:
@@ -338,7 +336,7 @@ def _compile_smoother(lvl, spec, dtype, n_pad):
 
     warnings.warn(
         f"smoother '{name}' has no device form; substituting hybrid "
-        "multicolor Gauss-Seidel (convergence-equivalent TPU smoother)")
+        "multicolor Gauss-Seidel (convergence-equivalent device smoother)")
     return _mcgs_or_chebyshev(kwargs.get("sweep", "symmetric"))
 
 
@@ -452,8 +450,8 @@ def _transfer_operator(M, dtype, row_pad, fac=None, A_dev=None,
     """Device form of a prolongator (fine-rows transfer operator): dense
     when small, else factored S^d·T when the host smoother recorded the
     factorization, else adaptive-block windowed (narrow fine-row
-    windows).  Complex transfers take the re/im-split windowed form —
-    four real Pallas passes (sparse/window.py::ComplexWindowed)."""
+    windows).  Complex transfers take the re/im-split windowed form
+    (sparse/window.py::ComplexWindowed)."""
     if max(M.shape) <= 2048:
         return dense_from_scipy(M, dtype=dtype, row_pad=row_pad)
     if jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating):
@@ -474,8 +472,8 @@ def _transfer_operator(M, dtype, row_pad, fac=None, A_dev=None,
 
 def _is_transpose_of(R, P):
     """R == P^T to rounding, cheaply.  Deliberately the PLAIN transpose:
-    the shared-array device forms (TransposedWindowed, reversed factored
-    ops) apply A^T, so a complex-hermitian R = P^H must NOT match."""
+    the factored restriction applies the transposed factors, so a
+    complex-hermitian R = P^H must NOT match."""
     if P is None or R.shape != sp.csr_matrix(P).shape[::-1]:
         return False
     D = (R - sp.csr_matrix(P).T).tocsr()
@@ -483,80 +481,49 @@ def _is_transpose_of(R, P):
     return D.nnz == 0 or np.abs(D.data).max() <= 1e-14 * scale
 
 
+def _gather_form(M, dtype, row_pad):
+    """Explicit device form of a transfer operator that no cheaper
+    structured form covers: windowed when its row blocks have narrow
+    column windows, else select_operator's choice."""
+    W = windowed_from_scipy(M, dtype=dtype)
+    if W is not None:
+        return W
+    return select_operator(M, dtype=dtype, row_pad=row_pad)
+
+
 def _restriction_operator(R, P, P_dev, dtype, row_pad, fac=None,
                           r_is_pt=False):
-    """Device form of a restriction operator (round 2).
+    """Device form of a restriction operator.
 
-    Coarse-row operators have pathologically wide column windows (one
-    coarse row block spans many fine grid rows: measured w2=16384/H=256
-    vs the prolongator's w2=1024/H=16), so R is stored as windowed(R^T)
-    — P geometry — and applied backwards through the Pallas transpose
-    kernel.  When R == P^T exactly (symmetric SA/classical hierarchies),
-    P's device arrays are shared outright (half the uploads).
+    R is stored EXPLICITLY and applied by gathers, never as a lazy
+    transpose of P: a transpose apply is a scatter-add, whose sum order
+    on the GPU changes from run to run, and the residual history of a
+    solve would then not repeat.  When P is the factored S^d·T and
+    R == P^T, R keeps the factored form T^T·(S^T)^d with T^T explicit.
     """
     if max(R.shape) <= 2048:
         return dense_from_scipy(R, dtype=dtype, row_pad=row_pad)
     if jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating):
-        return _complex_restriction_operator(R, P, P_dev, dtype, row_pad)
+        from ..sparse import complex_windowed_from_scipy
+
+        W = complex_windowed_from_scipy(R, dtype=dtype)
+        if W is not None:
+            return W
+        return select_operator(R, dtype=dtype, row_pad=row_pad)
     from ..sparse.composed import ComposedOperator
 
     if (isinstance(P_dev, ComposedOperator)
             and (r_is_pt or _is_transpose_of(R, P))):
-        # R = (S^d T)^T = T^T S^(T,d): share T's device arrays through the
-        # transpose kernel; S^T is a device DIA transpose (rolls only)
+        # R = (S^d T)^T = T^T S^(T,d); S^T is a device DIA transpose
         from .device_setup import dia_transpose
 
-        T_dev = P_dev.ops[-1]
+        Tt_dev = _gather_form(sp.csr_matrix(fac["T"]).T.tocsr(), dtype,
+                              row_pad)
         St_dev = dia_transpose(P_dev.ops[0])
-        if (isinstance(T_dev, WindowedELL)
-                and T_dev._can_transpose_pallas()):
-            return ComposedOperator(
-                ops=(TransposedWindowed(T_dev),) + (St_dev,) * fac["degree"],
-                shape=R.shape, nnz=int(R.nnz))
-    if (isinstance(P_dev, WindowedELL) and P_dev._can_transpose_pallas()
-            and (r_is_pt or _is_transpose_of(R, P))):
-        return TransposedWindowed(P_dev)
-    Rt = sp.csr_matrix(R).T.tocsr()
-    Wt = windowed_from_scipy(Rt, dtype=dtype)
-    if Wt is not None and Wt._can_transpose_pallas():
-        return TransposedWindowed(Wt)
-    W = windowed_from_scipy(R, dtype=dtype)
-    if W is not None:
-        return W
-    return select_operator(R, dtype=dtype, row_pad=row_pad)
-
-
-def _matches_transpose(R, P, conj):
-    """R == P^H (conj=True) or P^T (conj=False) to rounding."""
-    Pc = sp.csr_matrix(P)
-    if P is None or R.shape != Pc.shape[::-1]:
-        return False
-    T = Pc.conj().T if conj else Pc.T
-    D = (R - T).tocsr()
-    scale = max(np.abs(R.data).max() if R.nnz else 0.0, 1e-300)
-    return D.nnz == 0 or np.abs(D.data).max() <= 1e-14 * scale
-
-
-def _complex_restriction_operator(R, P, P_dev, dtype, row_pad):
-    """Complex restriction (VERDICT r3 item 9): share P's re/im-split
-    arrays through the real transpose kernels when R == P^H (hermitian
-    hierarchies) or P^T ('symmetric' complex symmetry); else build
-    windowed(R^T) split form; else select_operator fallback."""
-    from ..sparse import (ComplexTransposedWindowed, ComplexWindowed,
-                          complex_windowed_from_scipy)
-
-    if isinstance(P_dev, ComplexWindowed) and P_dev._can_transpose_pallas():
-        for conj in (True, False):
-            if _matches_transpose(R, P, conj):
-                return ComplexTransposedWindowed(base=P_dev, conj=conj)
-    Rt = sp.csr_matrix(R).T.tocsr()        # plain transpose: apply via ^T
-    Wt = complex_windowed_from_scipy(Rt, dtype=dtype)
-    if Wt is not None and Wt._can_transpose_pallas():
-        return ComplexTransposedWindowed(base=Wt, conj=False)
-    W = complex_windowed_from_scipy(R, dtype=dtype)
-    if W is not None:
-        return W
-    return select_operator(R, dtype=dtype, row_pad=row_pad)
+        return ComposedOperator(
+            ops=(Tt_dev,) + (St_dev,) * fac["degree"],
+            shape=R.shape, nnz=int(R.nnz))
+    return _gather_form(sp.csr_matrix(R), dtype, row_pad)
 
 
 def compile_hierarchy(ml, dtype=jnp.float32, row_pad=_ROW_PAD,
@@ -575,14 +542,13 @@ def compile_hierarchy(ml, dtype=jnp.float32, row_pad=_ROW_PAD,
 
     ``coarse_cutoff=n`` truncates the DEVICE hierarchy at the first level
     with <= n unknowns, solving there with the dense pseudo-inverse
-    instead of descending further.  On this chip every extra level costs
-    a fixed ~0.15 ms of tiny-op overhead per cycle while a <=1024-unknown
-    dense pinv matvec is ~free (measured round 3: the 8-level 2048^2 SA
-    hierarchy spends 0.46 ms/cycle below level 4, n=979); the exact
-    coarse solve can only improve convergence.  Default None preserves
-    bitwise host-parity of residual histories (the host recursion depth
-    is kept).  The returned object is consumed by DeviceMultilevelSolver
-    (pyamg_tpu.engine.solver).
+    instead of descending further.  Every extra level costs a fixed
+    tiny-op overhead per cycle while a <=1024-unknown dense pinv matvec
+    is nearly free (the cut-off on the GPU is not measured yet: ROADMAP
+    S4); the exact coarse solve can only improve convergence.  Default
+    None preserves bitwise host-parity of residual histories (the host
+    recursion depth is kept).  The returned object is consumed by
+    DeviceMultilevelSolver (pyamg_tpu.engine.solver).
     """
     from ..sparse import DIAMatrix
 

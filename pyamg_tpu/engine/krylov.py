@@ -1,6 +1,6 @@
 """Device (lax.while_loop) Krylov methods.
 
-TPU-native solve-phase analogs of pyamg_tpu.krylov (SURVEY.md §2.3 L5):
+Device solve-phase analogs of pyamg_tpu.krylov (SURVEY.md §2.3 L5):
 the whole preconditioned iteration is one XLA program; residual norms are
 captured into a fixed-size history buffer (maxiter+1, NaN-padded) so the
 reference's ``residuals`` list contract survives jit (BASELINE.json:5).
@@ -26,13 +26,10 @@ __all__ = ["device_cg", "device_bicgstab", "device_fgmres",
 def _vdot(a, b):
     """Inner product as elementwise multiply + tree sum.
 
-    NEVER use jnp.vdot/jnp.dot on long device vectors here: XLA lowers
-    the f64 contraction onto the MXU, which on this TPU is ~25x slower
-    (43 ms vs 1.1 ms at 4.2M) AND silently f32-accurate (measured relerr
-    4.5e-8 — it rounds the operands through bf16/f32 passes).  The
-    VPU elementwise+sum path is HBM-bound and keeps full f64 accuracy
-    (relerr ~2e-15), which the mixed-precision outer Krylov loop depends
-    on."""
+    An elementwise multiply + sum is one bandwidth-bound fusion with no
+    precision setting to get wrong; a default-precision f32 dot may run
+    in TF32 on the GPU.  The mixed-precision outer Krylov loop depends on
+    full f64 accuracy here."""
     return jnp.sum(jnp.conj(a) * b)
 
 
@@ -48,10 +45,9 @@ def _rtol_of(b, tol):
 def _hist_set(history, idx, value):
     """history with history[idx] = value, as a where-over-iota instead of
     a dynamic_update_slice: under vmap (batched multi-RHS solves) ``idx``
-    is per-lane, and a batched dynamic_update_slice lowers to a scatter —
-    which on this TPU both crawls and degrades the session's dispatch
-    latency (DESIGN.md rule 1).  The iota form is a tiny elementwise
-    select in both the 1-D and batched cases."""
+    is per-lane, and a batched dynamic_update_slice lowers to a scatter.
+    The iota form is a tiny elementwise select in both the 1-D and
+    batched cases."""
     iota = lax.iota(jnp.int32, history.shape[0])
     return jnp.where(iota == idx, value.astype(history.dtype), history)
 
@@ -163,7 +159,7 @@ def device_bicgstab(matvec, b, x0, tol=1e-8, maxiter=100, M=None):
 def device_fgmres(matvec, b, x0, tol=1e-8, maxiter=100, M=None, restart=30):
     """Right-preconditioned flexible GMRES(restart).
 
-    TPU-first orthogonalization: CGS2 (classical Gram-Schmidt with one
+    Orthogonalization: CGS2 (classical Gram-Schmidt with one
     reorthogonalization) — two (m+1, n) matmuls per step instead of the
     reference's sequential MGS dots (amg_core apply_givens analog runs as
     a fori_loop over the rotation pairs).  Numerically CGS2 is as robust
@@ -201,15 +197,15 @@ def device_fgmres(matvec, b, x0, tol=1e-8, maxiter=100, M=None, restart=30):
             Z = Z.at[j].set(z)
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
             # CGS2: project, then re-project the remainder.  f64 basis
-            # matmuls must avoid the MXU (see _vdot) — use VPU
-            # broadcast-multiply + axis reductions there.
+            # products as broadcast-multiply + axis reductions (see
+            # _vdot).
             if dtype == jnp.float64:
                 proj = lambda M_, v: jnp.sum(M_ * v, axis=1)
                 comb = lambda c_, M_: jnp.sum(c_[:, None] * M_, axis=0)
             else:
-                # HIGHEST: the Gram dots set the Hessenberg entries; TPU
-                # DEFAULT would run them as bf16 passes (the basis reads
-                # are HBM-bound, so exact passes cost nothing measurable)
+                # HIGHEST: the Gram dots set the Hessenberg entries; a
+                # default-precision f32 dot may run in TF32 on the GPU
+                # (the basis reads are bandwidth-bound either way)
                 proj = lambda M_, v: jnp.dot(
                     M_, v, precision=jax.lax.Precision.HIGHEST)
                 comb = lambda c_, M_: jnp.dot(
@@ -262,7 +258,7 @@ def device_fgmres(matvec, b, x0, tol=1e-8, maxiter=100, M=None, restart=30):
         g_eff = jnp.where(jnp.abs(diag) > 0, g[:m], 0.0)
         y = jax.scipy.linalg.solve_triangular(Hm, g_eff, lower=False)
         if dtype == jnp.float64:
-            x = x + jnp.sum(y[:, None] * Z, axis=0)   # VPU, not f64-MXU
+            x = x + jnp.sum(y[:, None] * Z, axis=0)
         else:
             x = x + jnp.dot(y, Z, precision=lax.Precision.HIGHEST)
         return x, history, it + m, normr
@@ -290,8 +286,8 @@ def device_gmres(matvec, b, x0, tol=1e-8, maxiter=100, M=None, restart=30):
     built on M·A, the residual history holds the Givens estimates of the
     PRECONDITIONED residual norm, and rtol references ||M b|| (the host
     'rr' criterion).  Orthogonalization is CGS2 (two batched basis
-    matmuls per step instead of MGS's sequential dots — the TPU-first
-    form, numerically as robust; see device_fgmres).  Histories match
+    matmuls per step instead of MGS's sequential dots — numerically as
+    robust; see device_fgmres).  Histories match
     the host to orthogonalization rounding."""
     maxiter = int(maxiter)
     m = int(min(restart, maxiter))
@@ -321,7 +317,7 @@ def device_gmres(matvec, b, x0, tol=1e-8, maxiter=100, M=None, restart=30):
             w = precond(matvec(V[j]))
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
             if dtype == jnp.float64:
-                # f64 basis matmuls avoid the MXU (see _vdot)
+                # f64 basis products as reductions (see _vdot)
                 proj = lambda M_, v: jnp.sum(M_ * v, axis=1)
                 comb = lambda c_, M_: jnp.sum(c_[:, None] * M_, axis=0)
             else:

@@ -3,7 +3,7 @@
 BASELINE.json:5 names "setup-phase graph algorithms (strength,
 aggregation, splitting) as parallel JAX primitives" as a subsystem that
 changes.  The reference's serial graph loops (SURVEY.md §2.4 graph.h /
-ruge_stuben.h) become fixed-point iterations here, with one key TPU
+ruge_stuben.h) become fixed-point iterations here, with one key device
 twist: neighbor access happens over the **DIA structure by rolling**, so
 every primitive is gather-free (see DESIGN.md for why gathers are
 banned) and static-shape:

@@ -10,7 +10,7 @@ upwind advection.  Everything value-carrying stays on device; the host
 sees one C/F-mask pull + a handful of scalars per level for static
 window planning (same contract as ``device_unstructured_sa_setup``).
 
-TPU-first design, not a port:
+A design for the device, not a port:
 
 - **C/F splitting = select-based PMIS.**  The reference's serial RS
   two-pass walk has no parallel form; PMIS ([R] pyamg/classical/split.py
@@ -40,7 +40,7 @@ TPU-first design, not a port:
   row — a per-row gather/LAPACK pattern with no gather-free windowed
   form (the structured path can roll stencil neighborhoods;
   an unstructured neighborhood cannot be enumerated without gathers).
-  The TPU-native equivalent is the nAIR variant ([R]
+  The device equivalent is the nAIR variant ([R]
   pyamg/classical/air.py 'nAIR' restrict option): A_ff^{-1} ≈ degree-d
   Jacobi series, so R r = inject_C(r - A z) with z = d F-masked Jacobi
   sweeps on A_ff z = r_F — nothing but windowed applies and masks.  On
@@ -68,7 +68,6 @@ from jax import lax
 
 from ..sparse import TransposedWindowed, WindowedELL, pad_to, \
     windowed_from_scipy
-from ..sparse.window import _split3_bf16
 from ..sparse.dia import DenseOperator
 from . import relaxation as device_relaxation
 from .device_setup import (_ns_pinv, _power_rho, _smoother_device_arrays,
@@ -278,7 +277,7 @@ def _stage_build_p_onepoint(W: WindowedELL, c_f, *, theta, norm, dtype,
 def _stage_build_m_mod(W: WindowedELL, c_f, *, theta, norm, dtype,
                        p_geom):
     """Modified-classical distribution factor M + direct P ([R] amg_core
-    rs_classical_interpolation_pass2 semantics, TPU form — see
+    rs_classical_interpolation_pass2 semantics, device form — see
     ComposedWindowed): P_mod = M · P_direct where M redistributes each F
     row over ALL its strong neighbors (C and F) with the direct-weight
     formula, and P_direct then maps every row's mass to coarse indices.
@@ -420,12 +419,9 @@ def _probe_rap_r(A_w, P, R, cstarts, *, period, K, nc_pad, bc, dtype):
         oh = ((jnp.remainder(d[None, :, None] - cstarts[:, None, None],
                              np.int32(period)) == w_iota[None, None, :])
               & (d[None, :, None] < period))
-        ohb = oh.astype(jnp.bfloat16)
-        acc = None
-        for p in _split3_bf16(Y3):
-            term = jnp.einsum("brj,bjw->brw", p, ohb,
-                              preferred_element_type=jnp.float32)
-            acc = term if acc is None else acc + term
+        # exact placement: one nonzero term per output, full precision
+        acc = jnp.einsum("brj,bjw->brw", Y3, oh.astype(jnp.float32),
+                         precision=lax.Precision.HIGHEST)
         return A_band + acc.astype(dtype)
 
     A_band = jnp.zeros((nb_c, bc, period), dtype=dtype)
@@ -489,17 +485,15 @@ def device_unstructured_rs_setup(A, dtype=jnp.float32, theta=0.25,
     ``interpolation``: 'modified' (default — P = M · P_direct composed
     factors, the distance-two family that restores classical rates
     under PMIS; solve-phase transfers cost two windowed applies) or
-    'direct' (single-factor, cheapest applies).  Measured at 640k P1
-    FEM on TPU: modified 8 CG iters / 47 s warm setup, direct 11
-    iters / 16 s (host RS 4 iters; the composed-P probe chains pay
-    M and M^T windowed passes the SA pipeline doesn't).  Returns a
-    DeviceMultilevelSolver."""
+    'direct' (single-factor, cheapest applies; the composed-P probe
+    chains pay M and M^T windowed passes the SA pipeline doesn't).
+    Returns a DeviceMultilevelSolver."""
     if interpolation not in ("modified", "direct"):
         raise ValueError(f"unknown interpolation {interpolation!r}")
     if mixed_precision:
         raise NotImplementedError(
-            "mixed-precision needs an f64 finest apply; the windowed "
-            "kernels are f32/bf16 — use the f32 device solve or a host "
+            "mixed precision is not wired into this setup (no f64 finest "
+            "operator is built); use the f32 device solve or a host "
             "outer loop around aspreconditioner()")
     def _retry(Ap, perm):
         inner = device_unstructured_rs_setup(
@@ -612,8 +606,9 @@ def device_unstructured_air_setup(A, dtype=jnp.float32, theta=0.25,
     ``'bicgstab'``.  Returns a DeviceMultilevelSolver."""
     if mixed_precision:
         raise NotImplementedError(
-            "mixed-precision needs an f64 finest apply; use the f32 "
-            "device solve or a host outer loop")
+            "mixed precision is not wired into this setup (no f64 finest "
+            "operator is built); use the f32 device solve or a host "
+            "outer loop")
     def _retry(Ap, perm):
         inner = device_unstructured_air_setup(
             Ap, dtype=dtype, theta=theta, norm=norm, degree=degree,

@@ -1,6 +1,6 @@
 """Graph algorithms for coarsening, coloring, and clustering (host side).
 
-TPU-native rebuild of [R] pyamg/graph.py backed by amg_core/graph.h
+Rebuild of [R] pyamg/graph.py backed by amg_core/graph.h
 (SURVEY.md §2.3 / §2.4).  The parallel-flavored algorithms (Luby MIS,
 Jones-Plassmann coloring, Bellman-Ford) are implemented as vectorized
 fixed-point rounds over the whole vertex set — exactly the form that maps

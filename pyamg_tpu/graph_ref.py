@@ -1,6 +1,6 @@
 """Pure-Python reference implementations of the graph kernels.
 
-TPU-native rebuild of [R] pyamg/graph_ref.py (SURVEY.md §2.3): slow,
+Rebuild of [R] pyamg/graph_ref.py (SURVEY.md §2.3): slow,
 obviously-correct versions used as golden references in tests (the
 reference's institutionalized testing idiom, SURVEY.md §4 item 1).
 """

@@ -1,11 +1,12 @@
 """Multilevel hierarchy and cycling engine (host reference path).
 
-TPU-native rebuild of [R] pyamg/multilevel.py (SURVEY.md §2.1, layer L4).
+Rebuild of [R] pyamg/multilevel.py (SURVEY.md §2.1, layer L4).
 The class below is the *reference-semantics* host engine: exact V/W/F/AMLI
 recursion over scipy operators, the correctness anchor for the jitted
 device engine in :mod:`pyamg_tpu.engine` (which unrolls the same cycle
-over a static level pytree and runs it on TPU).  ``solve`` can dispatch to
-the device engine via ``backend='device'`` once a hierarchy is compiled.
+over a static level pytree and runs it on the device).  ``solve`` can
+dispatch to the device engine via ``backend='device'`` once a hierarchy
+is compiled.
 
 Cycle semantics replicated exactly (SURVEY.md §2.1): 'V' one recursive
 call, 'W' two, 'F' one F-recursion then one V, 'AMLI' coarse-level
@@ -171,7 +172,7 @@ class MultilevelSolver:
 
     def to_device(self, dtype=None, mixed_precision=False, row_pad=None,
                   coarse_cutoff=None):
-        """Compile (and cache) this hierarchy for the TPU engine.
+        """Compile (and cache) this hierarchy for the device engine.
 
         Returns a pyamg_tpu.engine.DeviceMultilevelSolver; repeated calls
         with the same options reuse the compiled hierarchy.
@@ -210,31 +211,22 @@ class MultilevelSolver:
         [R] pyamg/multilevel.py::solve.  ``residuals`` (a list) receives
         the 2-norm residual history including iteration 0.
 
-        backend='device' routes through the jitted TPU engine
-        (:meth:`to_device`; V/W/F cycles, cg/gmres/bicgstab accel, no
-        callback support); 'host' (default) is the reference-semantics
-        SciPy path.
+        backend='device' routes through the jitted device engine
+        (:meth:`to_device`, native f64; V/W/F cycles, cg/gmres/bicgstab
+        accel, no callback support); 'host' (default) is the
+        reference-semantics SciPy path.
         """
         if backend == "device":
             if callback is not None:
                 raise ValueError("device backend does not support callbacks; "
                                  "use backend='host'")
-            import jax
             import jax.numpy as jnp
 
-            if jax.default_backend() == "tpu":
-                # Mosaic has no 64-bit kernels: f64 on TPU means the
-                # mixed scheme (f32 cycle + f64 outer loop on device)
-                dml = self.to_device(dtype=jnp.float32,
-                                     mixed_precision=True)
-                precision = "mixed"
-            else:
-                dml = self.to_device(dtype=jnp.float64)
-                precision = "native"
+            dml = self.to_device(dtype=jnp.float64)
             return dml.solve(b, x0=x0, tol=tol,
                              maxiter=100 if maxiter is None else maxiter,
                              cycle=cycle, accel=accel, residuals=residuals,
-                             return_info=return_info, precision=precision)
+                             return_info=return_info)
         A = self.levels[0].A
         if maxiter is None:
             maxiter = 100
@@ -431,12 +423,12 @@ def coarse_grid_solver(solver):
 
     if name == "pinv":
         def fn(A, b):
-            cached = getattr(A, "_tpu_pinv", None)
+            cached = getattr(A, "_amg_pinv", None)
             if cached is None:
                 Ad = A.toarray() if sp.issparse(A) else np.asarray(A)
                 cached = scipy.linalg.pinv(Ad, **kwargs)
                 try:
-                    A._tpu_pinv = cached
+                    A._amg_pinv = cached
                 except AttributeError:
                     pass
             return cached @ b
@@ -444,7 +436,7 @@ def coarse_grid_solver(solver):
 
     if name in ("lu", "splu"):
         def fn(A, b):
-            cached = getattr(A, "_tpu_splu", None)
+            cached = getattr(A, "_amg_splu", None)
             if cached is None:
                 Ac = sp.csc_matrix(A)
                 try:
@@ -457,7 +449,7 @@ def coarse_grid_solver(solver):
                                                 dtype=Ac.dtype)), **kwargs
                     )
                 try:
-                    A._tpu_splu = cached
+                    A._amg_splu = cached
                 except AttributeError:
                     pass
             return cached.solve(np.asarray(b, dtype=np.promote_types(A.dtype, np.float64)))
@@ -465,12 +457,12 @@ def coarse_grid_solver(solver):
 
     if name == "cholesky":
         def fn(A, b):
-            cached = getattr(A, "_tpu_chol", None)
+            cached = getattr(A, "_amg_chol", None)
             if cached is None:
                 Ad = A.toarray() if sp.issparse(A) else np.asarray(A)
                 cached = scipy.linalg.cho_factor(Ad, **kwargs)
                 try:
-                    A._tpu_chol = cached
+                    A._amg_chol = cached
                 except AttributeError:
                     pass
             return scipy.linalg.cho_solve(cached, b)

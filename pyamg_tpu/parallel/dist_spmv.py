@@ -6,18 +6,16 @@ from the neighboring shards.  The GSPMD baseline (pyamg_tpu.parallel.
 partition) lets the partitioner insert collectives; this module is the
 *explicit* version: a shard_map kernel that
 
-1. sends boundary slices to ring neighbors with `lax.ppermute` (rides the
-   ICI; XLA schedules the permutes concurrently with interior compute),
+1. sends boundary slices to ring neighbors with `lax.ppermute` (NCCL on
+   the GPU; XLA schedules the permutes concurrently with interior compute),
 2. extends the local block with the received halos,
 3. runs the rolled-DIA SpMV on the extended vector.
 
 Ring wrap-around is harmless for the same reason plain DIA rolls are:
 entries whose column leaves the matrix have zero stored data.
 
-The Pallas `make_async_remote_copy` double-buffered variant (explicit
-compute/communication overlap) is the planned follow-up; `ppermute` is
-the collective named by BASELINE.json:5 ("halo vector exchange via
-jax.lax collectives").
+`ppermute` is the collective named by BASELINE.json:5 ("halo vector
+exchange via jax.lax collectives").
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Multi-host bring-up.
 
 SURVEY.md §2.5: the reference has no communication backend; the
-TPU-native equivalent is `jax.distributed.initialize()` (one process per
-host, devices discovered via the TPU runtime) followed by a global mesh.
-This module wraps the bootstrap so solver code stays identical between
-single-host and pod-slice runs.
+equivalent here is `jax.distributed.initialize()` (one process per GPU
+host, or per GPU) followed by a global mesh.  On GPU hosts nothing
+announces the cluster, so the caller passes the coordinator address,
+the process count and this process's id.  One process driving all the
+cards of one host needs none of this.
 """
 
 from __future__ import annotations
@@ -18,25 +19,18 @@ _initialized = False
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
-    """Initialize JAX's multi-host runtime (idempotent).
+    """Initialize JAX's multi-process runtime (idempotent).
 
-    With no arguments, relies on the TPU environment's auto-discovery
-    (the standard pod-slice path).  Returns (process_index,
-    process_count, device_count).
+    ``coordinator_address`` (``host:port`` of process 0),
+    ``num_processes`` and ``process_id`` must all be given for a
+    multi-process run; with no coordinator this is a no-op (one process,
+    one host).  Returns (process_index, process_count, device_count).
     """
     global _initialized
-    if not _initialized and jax.process_count() == 1:
-        try:
-            kwargs = {}
-            if coordinator_address is not None:
-                kwargs["coordinator_address"] = coordinator_address
-            if num_processes is not None:
-                kwargs["num_processes"] = num_processes
-            if process_id is not None:
-                kwargs["process_id"] = process_id
-            jax.distributed.initialize(**kwargs)
-            _initialized = True
-        except (RuntimeError, ValueError):
-            # single-process environment (tests, one host): fine
-            _initialized = True
+    if (not _initialized and coordinator_address is not None
+            and jax.process_count() == 1):
+        jax.distributed.initialize(coordinator_address=coordinator_address,
+                                   num_processes=num_processes,
+                                   process_id=process_id)
+        _initialized = True
     return jax.process_index(), jax.process_count(), jax.device_count()

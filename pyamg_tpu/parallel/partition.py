@@ -9,8 +9,8 @@ Baseline distribution strategy (GSPMD; SURVEY.md §2.5 "TP analog"):
   to XLA collectives automatically; Krylov dot products partition to
   psum.
 
-The explicitly-overlapped halo-exchange path (shard_map +
-make_async_remote_copy) lives in :mod:`pyamg_tpu.parallel.dist_spmv`.
+The explicit halo-exchange path (shard_map + ppermute) lives in
+:mod:`pyamg_tpu.parallel.dist_spmv`.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def make_solver_mesh(n_devices=None, axis="x"):
     Axis type is Auto (classic GSPMD propagation): SpMV's neighbor gather
     has data-dependent cross-shard reads, which the explicit
     sharding-in-types mode refuses to resolve; under Auto the partitioner
-    inserts the needed all-gather itself.  The hand-overlapped halo path
-    (shard_map + remote DMA) bypasses GSPMD entirely.
+    inserts the needed all-gather itself.  The explicit halo path
+    (shard_map + ppermute) bypasses GSPMD entirely.
     """
     if n_devices is None:
         n_devices = len(jax.devices())
@@ -112,6 +112,11 @@ def _shard_op(mesh, E, axis="x"):
     )
 
 
+def _replicate(mesh, tree):
+    rep = NamedSharding(mesh, P())
+    return jax.tree_util.tree_map(lambda a: jax.device_put(a, rep), tree)
+
+
 def _level_groups(n_pad, ndev, min_local_rows):
     """Pick the number of shard groups for a level: the largest
     power-of-two divisor k of ndev keeping >= min_local_rows rows per
@@ -151,8 +156,8 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
     genuinely tiny levels replicate everywhere.  The coarse dense
     inverse is replicated.
 
-    Note: compile the hierarchy with ``row_pad = 8 * mesh_size`` (or
-    128 * mesh_size on TPU) so level paddings divide evenly.
+    Note: compile the hierarchy with ``row_pad = 8 * mesh_size`` so
+    level paddings divide evenly.
     """
     from ..engine.hierarchy import DeviceHierarchy, DeviceLevel
 
@@ -169,12 +174,14 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
             # next level's layout
             if lvl.R is not None:
                 kc = _level_groups(lvl.R.n_pad, ndev, min_local_rows)
-                R = _shard_op(_submesh(mesh, kc, axis), lvl.R, axis) \
-                    if kc > 1 else lvl.R
+                R = (_shard_op(_submesh(mesh, kc, axis), lvl.R, axis)
+                     if kc > 1 else _replicate(mesh, lvl.R))
             else:
                 R = None
         else:
-            A, Pop, R = lvl.A, lvl.P, lvl.R
+            # agglomerated: replicate on every device of the mesh (left
+            # as is, the arrays would stay on the default device alone)
+            A, Pop, R = _replicate(mesh, (lvl.A, lvl.P, lvl.R))
         new_levels.append(DeviceLevel(
             A=A, P=Pop, R=R, pre=lvl.pre, post=lvl.post,
             n=lvl.n, n_pad=lvl.n_pad))

@@ -1,9 +1,9 @@
 """Chebyshev / MLS polynomial smoother coefficients.
 
-TPU-native rebuild of [R] pyamg/relaxation/chebyshev.py (SURVEY.md §2.3).
+Rebuild of [R] pyamg/relaxation/chebyshev.py (SURVEY.md §2.3).
 Pure NumPy polynomial arithmetic; consumed by the polynomial smoother both
 on host and in the device engine (where polynomial relaxation is the
-TPU-preferred smoother: pure SpMV, no sequential dependence).
+device-preferred smoother: pure SpMV, no sequential dependence).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Stationary relaxation methods (host reference implementations).
 
-TPU-native rebuild of [R] pyamg/relaxation/relaxation.py backed by
+Rebuild of [R] pyamg/relaxation/relaxation.py backed by
 amg_core/relaxation.h (SURVEY.md §2.3 / §2.4).  These host versions have
 *exact sequential semantics* (true lexicographic Gauss-Seidel etc.) and are
 the golden references for the device smoothers in
 :mod:`pyamg_tpu.engine.relaxation` (which use Jacobi/Chebyshev/multicolor
-forms, the TPU-parallel equivalents named in BASELINE.json:2).
+forms, the parallel equivalents named in BASELINE.json:2).
 
 Sequential sweeps are expressed as sparse triangular solves:
 forward GS:  (D + L) x_new = b - U x_old   — identical arithmetic to the
@@ -95,7 +95,7 @@ weighted_jacobi = jacobi
 
 def _tri_parts(A, lower):
     """Cache (D+L) [or (D+U)] and the complementary strict triangle."""
-    key = "_tpu_tri_lower" if lower else "_tpu_tri_upper"
+    key = "_amg_tri_lower" if lower else "_amg_tri_upper"
     cached = getattr(A, key, None)
     if cached is not None:
         return cached
@@ -450,7 +450,7 @@ def schwarz_parameters(A, subdomain=None, subdomain_ptr=None,
     subdomain for row i is its neighborhood (pattern of row i); the dense
     subblocks A[sub, sub] are pseudo-inverted up front.
     """
-    cached = getattr(A, "_tpu_schwarz", None)
+    cached = getattr(A, "_amg_schwarz", None)
     if cached is not None and subdomain is None:
         return cached
     Acsr = sp.csr_matrix(A)
@@ -471,7 +471,7 @@ def schwarz_parameters(A, subdomain=None, subdomain_ptr=None,
             inv_subblock[inv_subblock_ptr[i]: inv_subblock_ptr[i + 1]] = inv.ravel()
     params = (subdomain, subdomain_ptr, inv_subblock, inv_subblock_ptr)
     try:
-        A._tpu_schwarz = params
+        A._amg_schwarz = params
     except AttributeError:
         pass
     return params

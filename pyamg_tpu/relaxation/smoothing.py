@@ -1,6 +1,6 @@
 """Smoother spec resolution — bind ('name', kwargs) specs to level closures.
 
-TPU-native rebuild of [R] pyamg/relaxation/smoothing.py (SURVEY.md §2.3).
+Rebuild of [R] pyamg/relaxation/smoothing.py (SURVEY.md §2.3).
 ``change_smoothers(ml, pre, post)`` translates the reference's uniform
 ('name', kwargs) spec convention into per-level pre/post smoother
 closures, computing spectral-radius-scaled omegas and Chebyshev

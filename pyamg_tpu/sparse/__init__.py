@@ -1,10 +1,9 @@
-"""Device sparse containers and SpMV kernels (SURVEY.md §7 step 1)."""
+"""Device sparse containers and their SpMV forms (SURVEY.md §7 step 1)."""
 
 from .dia import (DenseOperator, DIAMatrix, dense_from_scipy,
                   dia_from_scipy, dia_from_stencil, dia_spgemm)
 from .block_dia import BlockDIAMatrix, block_dia_from_scipy
-from .interleaved import from_interleaved, to_interleaved
-from .window import (ComplexTransposedWindowed, ComplexWindowed,
+from .window import (ComplexWindowed,
                      TransposedWindowed, WindowedELL,
                      complex_windowed_from_scipy, windowed_from_scipy)
 from .formats import (
@@ -20,13 +19,13 @@ from .formats import (
 
 def select_operator(A, dtype=None, row_pad=8, dense_threshold=2048,
                     max_diags=600):
-    """Pick the TPU-fastest device format for a scipy operator.
+    """Pick the device format for a scipy operator.
 
-    - small (either dim <= dense_threshold): DenseOperator (MXU matvec)
+    - small (either dim <= dense_threshold): DenseOperator
     - square banded (<= max_diags distinct diagonals): DIAMatrix
-      (rolled VPU SpMV — the gather-free hot path)
-    - otherwise: gather ELL (slow on TPU; the Pallas windowed kernel
-      replaces this for large unstructured operators)
+      (shifted-slice SpMV — the gather-free hot path)
+    - otherwise: WindowedELL when its row blocks have narrow column
+      windows, else plain gather ELL
     """
     import jax.numpy as jnp
 
@@ -41,27 +40,18 @@ def select_operator(A, dtype=None, row_pad=8, dense_threshold=2048,
         if dia is not None:
             return dia
     if jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating):
-        # complex windowed operators take the re/im-split form — the
-        # Pallas one-hot kernels are real-only (sparse/window.py)
+        # complex windowed operators take the re/im-split form
         win = complex_windowed_from_scipy(A, dtype=dtype)
     else:
         win = windowed_from_scipy(A, dtype=dtype)
     if win is not None:
         return win
-    # last resort: gather ELL (fast path only off-TPU; on TPU an XLA
-    # gather both crawls and degrades the whole session — avoid)
-    import warnings
-
-    warnings.warn(
-        f"operator {A.shape} not windowable; falling back to gather ELL "
-        "(slow on TPU)")
     return ell_from_scipy(A, dtype=dtype, row_pad=row_pad)
 
 
 __all__ = [
     "BlockDIAMatrix",
     "BlockELLMatrix",
-    "ComplexTransposedWindowed",
     "ComplexWindowed",
     "block_dia_from_scipy",
     "complex_windowed_from_scipy",

@@ -1,15 +1,15 @@
-"""Block-DIA device format — the TPU-native BSR solve path.
+"""Block-DIA device format — the device BSR solve path.
 
 Round-1 verdict item 5: elasticity (BSR blocksize 2) ran devicewise as a
-scalar DIA/windowed operator with scalar smoothers.  The TPU-native
-block format mirrors the scalar DIA insight (DESIGN.md rule 1: no
-gathers): a BSR operator on a lexicographic grid is *block-banded*, so
-store it by BLOCK diagonal and apply with block rolls:
+scalar DIA/windowed operator with scalar smoothers.  The block format
+mirrors the scalar DIA insight (no gathers): a BSR operator on a
+lexicographic grid is *block-banded*, so store it by BLOCK diagonal and
+apply with block rolls:
 
     y_blk = sum_d  data[d] @_batched roll(x_blk, -offsets[d], axis=0)
 
-where data[d] is (nb_pad, bs, bs) and @_batched is an einsum the XLA
-vectorizer maps onto the VPU (bs is tiny: 2-4).  Wrap-around and
+where data[d] is (nb_pad, bs, bs) and @_batched is unrolled into
+elementwise mul-adds (bs is tiny: 2-4).  Wrap-around and
 padding contribute exact zeros, exactly like the scalar DIAMatrix.
 
 Reference counterpart: scipy bsr_matvec (SURVEY.md §2.4 L0) and the
@@ -76,10 +76,9 @@ class BlockDIAMatrix:
 
     def matvec(self, x):
         # per-block products UNROLLED over the static bs as elementwise
-        # mul-adds (pure VPU).  Not einsum: XLA lowers tiny batched dots
-        # through MXU passes whose f64 emulation is only f32-accurate on
-        # TPU (same trap as CLAUDE.md's f64 vdot rule) — the mixed-
-        # precision outer Krylov needs the f64 matvec exact.
+        # mul-adds.  Not einsum: a tiny batched f32 dot at default
+        # precision may run in TF32 on the GPU, and the mixed-precision
+        # outer Krylov needs the f64 matvec exact.
         bs = self.bs
         xb = x.reshape(self.nb_pad, bs)
         cols = [xb[:, j] for j in range(bs)]
@@ -118,7 +117,7 @@ class BlockDIAMatrix:
 
     def rmatvec(self, x):
         """A.T @ x by block rolls (transpose blocks, negate offsets);
-        unrolled elementwise like matvec (exact f64 on TPU)."""
+        unrolled elementwise like matvec."""
         bs = self.bs
         xb = x.reshape(self.nb_pad, bs)
         cols = [xb[:, j] for j in range(bs)]

@@ -1,18 +1,17 @@
 """Composed device operator: a product of device operators applied
 factor-by-factor.
 
-The TPU form of FACTORED transfer operators.  A smoothed-aggregation
+The device form of FACTORED transfer operators.  A smoothed-aggregation
 prolongator P = (I - w D^-1 A)^degree @ T is, materialized, a k~6
-windowed operator whose one-hot apply costs ~k MXU selection passes; as
-factors it is `degree` DIA applies (HBM-bound Pallas kernel) plus one
-k=1 windowed spread of the tentative T — measured ~4x cheaper at 4.2M
-rows.  The host smoothers record the factorization on P
+windowed operator with k gathers per row; as factors it is `degree`
+DIA applies (bandwidth-bound) plus one k=1 windowed spread of the
+tentative T.  The host smoothers record the factorization on P
 (aggregation/smooth.py), engine/hierarchy.py compiles it to this class.
 
 Reference counterpart: none — upstream pyamg applies the materialized
 CSR P / P.T (SURVEY.md §2.1 MultilevelSolver.__solve); the factored
 apply is numerically identical (same floating-point product structure
-up to op reassociation) and exists purely for TPU speed.
+up to op reassociation) and exists for speed.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Device-resident sparse formats (static-shape pytrees).
 
-The TPU-native replacement for the reference's CSR/BSR containers
+The device replacement for the reference's CSR/BSR containers
 (SURVEY.md §2.4 "Implicit native dependency": scipy csr_matvec/csr_matmat
--> these + Pallas kernels).  Design (SURVEY.md §7 design stance):
+-> these).  Design (SURVEY.md §7 design stance):
 
 - **ELL (padded-row) layout**: ``data``/``indices`` of static shape
   (n_pad, k) where k = max row nnz.  AMG operators from stencil-type
@@ -11,8 +11,7 @@ The TPU-native replacement for the reference's CSR/BSR containers
 - Padding rows carry index 0 / value 0, so SpMV contributions vanish and
   padded vector entries stay identically zero through every kernel — no
   masks needed in dots/norms.
-- Block variant stores (nb_pad, k, br, bc) blocks for MXU-friendly block
-  gathers.
+- Block variant stores (nb_pad, k, br, bc) blocks for block gathers.
 
 Host <-> device conversion is vectorized scipy -> numpy -> jnp.
 """

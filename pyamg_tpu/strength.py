@@ -1,6 +1,6 @@
 """Strength-of-connection measures (setup phase, host side).
 
-TPU-native rebuild of [R] pyamg/strength.py (SURVEY.md §2.3).  All measures
+Rebuild of [R] pyamg/strength.py (SURVEY.md §2.3).  All measures
 are implemented as vectorized NumPy/SciPy passes over CSR rows — the direct
 analog of the rowwise amg_core kernels (classical_strength_of_connection_abs
 / _min, symmetric_strength_of_connection, maximum_row_value; SURVEY.md §2.4

@@ -1,6 +1,6 @@
 """Linear-algebra utilities (host side, NumPy/SciPy).
 
-TPU-native rebuild of the reference utilities described in
+Rebuild of the reference utilities described in
 SURVEY.md §2.3 ("Linear-algebra utilities", anchor [R] pyamg/util/linalg.py).
 All code here is written from scratch against the functional definitions in
 the survey; nothing is copied from the reference (whose mount is empty).

@@ -1,6 +1,6 @@
 """General sparse/plumbing utilities (host side).
 
-TPU-native rebuild of [R] pyamg/util/utils.py (SURVEY.md §2.3, "General
+Rebuild of [R] pyamg/util/utils.py (SURVEY.md §2.3, "General
 utilities").  Written from scratch against the survey's functional
 definitions; vectorized NumPy/SciPy throughout (no per-element Python).
 

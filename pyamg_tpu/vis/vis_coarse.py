@@ -1,6 +1,6 @@
 """Aggregate visualization.
 
-TPU-native rebuild of [R] pyamg/vis/vis_coarse.py (SURVEY.md §2.3, (M)):
+Rebuild of [R] pyamg/vis/vis_coarse.py (SURVEY.md §2.3, (M)):
 export aggregate groupings over a mesh for inspection in ParaView
 (vis_aggregate_groups) or return matplotlib-ready segments.
 """

@@ -1,6 +1,6 @@
 """Minimal VTK (.vtu legacy XML) writers.
 
-TPU-native rebuild of [R] pyamg/vis/vtk_writer.py (SURVEY.md §2.3, (M)):
+Rebuild of [R] pyamg/vis/vtk_writer.py (SURVEY.md §2.3, (M)):
 serialize point/cell meshes with attached data for ParaView/VisIt.
 Pure-python XML emission, no external dependencies.
 """

@@ -29,7 +29,7 @@ SECTIONS = [
     ("Checkpointing", "pyamg_tpu.util.serialize"),
     ("Gallery (test problems)", "pyamg_tpu.gallery"),
     ("Blackbox API", "pyamg_tpu.blackbox"),
-    ("TPU engine (device hierarchies, device setup, device Krylov)",
+    ("Device engine (device hierarchies, device setup, device Krylov)",
      "pyamg_tpu.engine"),
     ("Device sparse formats & kernels", "pyamg_tpu.sparse"),
     ("Distributed (GSPMD sharding, halo SpMV, multihost)",

@@ -1,7 +1,7 @@
 """BASELINE.json:7-11 acceptance configs (SURVEY.md §7 step 8).
 
 The five driver configs, at test-friendly sizes (same operators and
-solver configurations; bench.py runs full sizes on TPU).  Acceptance is
+solver configurations; bench.py runs full sizes on the GPU).  Acceptance is
 behavioral: convergence factors in the reference's asserted ranges
 (SURVEY.md §6) and 1e-8 relative residuals.
 """

@@ -1,11 +1,10 @@
 """Batched multi-RHS device solves (SURVEY.md §2.5 data-parallel analog).
 
 ``DeviceMultilevelSolver.solve(b)`` with b of shape (n, K) runs K systems
-in one compiled program: the solve is vmapped over RHS lanes, the format
-applies reroute to 2-D matmat forms via custom_vmap (sparse/dia.py,
-sparse/window.py — the Pallas kernels have no batching rule), and the
-Krylov bodies freeze converged lanes (engine/krylov.py::_freeze) so each
-lane keeps its own residual history and iteration count.
+in one compiled program: the solve is vmapped over RHS lanes (every
+format apply is plain XLA, so the batch runs K-major), and the Krylov
+bodies freeze converged lanes (engine/krylov.py::_freeze) so each lane
+keeps its own residual history and iteration count.
 
 Parity tolerances: within one dtype the batched and single solves differ
 only by XLA reduction/fusion reassociation — ~1e-6 relative for f32
@@ -207,3 +206,27 @@ def test_kmajor_matches_column_stack_windowed():
     got = np.asarray(R.matmat(Xr))[: P.shape[1]]
     want = P.T @ np.asarray(Xr, dtype=np.float64)[: P.shape[0]]
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("lane_align", [False, True])
+def test_batched_cg_routes_to_vmapped(lane_align):
+    """Batched f32 V+CG solves — the flagship batched configuration,
+    lane-aligned or not — take the vmapped K-major program (one jit
+    entry keyed batched=True) and match per-column solves."""
+    from pyamg_tpu.engine import device_sa_setup
+
+    A = poisson((96, 96), format="csr")
+    dsa = device_sa_setup(A, grid=(96, 96), dtype=jnp.float32,
+                          max_coarse=60, lane_align=lane_align)
+    rng = np.random.default_rng(11)
+    B = rng.random((A.shape[0], 4))
+    res = []
+    X = dsa.solve(B, tol=1e-6, maxiter=60, accel="cg", residuals=res)
+    keys = list(dsa._jit_cache)
+    assert len(keys) == 1 and keys[0][6] is True     # batched=True
+    for j in range(B.shape[1]):
+        r1 = []
+        x1 = dsa.solve(B[:, j], tol=1e-6, maxiter=60, accel="cg",
+                       residuals=r1)
+        assert abs(len(res[j]) - len(r1)) <= 1
+        assert np.max(np.abs(X[:, j] - x1)) / np.max(np.abs(x1)) < 1e-4

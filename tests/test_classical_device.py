@@ -313,9 +313,9 @@ def test_air_local_restriction_golden():
 def test_device_rs_recirc_nonsymmetric():
     """Device classical RS handles the nonsymmetric recirculating-flow
     operator (BASELINE config 5's matrix family): multi-pass direct
-    interpolation on the upwind stencil + FGMRES converges.  Round-3
-    measurement at 1024^2 on TPU: setup 1.2 s (vs 13.5 s host
-    energy-min), 43 mixed iters to TRUE 3e-10."""
+    interpolation on the upwind stencil + FGMRES converges (at 1024^2,
+    chip_smoke.py phase 7: 43 mixed FGMRES iterations to a true
+    1.3e-11)."""
     import numpy as np
 
     from pyamg_tpu.engine import device_rs_setup

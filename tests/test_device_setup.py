@@ -289,29 +289,21 @@ def test_improve_candidates_rescaled():
     assert it_exact <= it8, (it_exact, it8)    # exact candidate is best
 
 
-def test_solve_pad_large_level():
-    """Levels >= 65536 unknowns pad their solve-phase operators to a
-    32768 multiple (fused-kernel-friendly n_pad, round 3) and the
-    padded hierarchy still solves correctly.  All other device-setup
-    tests sit below the threshold, so this is the only CI exercise of
-    the padding path (TPU runs hit it at every bench size)."""
+def test_large_level_exact_padding():
+    """Levels >= 65536 unknowns keep their exact padded-grid length (no
+    extra solve-phase padding) and the hierarchy solves correctly."""
     import numpy as np
     import jax.numpy as jnp
     from pyamg_tpu.engine import device_sa_setup
-    from pyamg_tpu.engine.device_setup import _solve_pad
     from pyamg_tpu.gallery import poisson
-
-    assert _solve_pad(4198401) == 4227072      # 2049^2 -> 129*32768
-    assert _solve_pad(467856) == 475136        # mid level -> 8192 quantum
-    assert _solve_pad(66560) == 69632          # small level -> 4096 quantum
-    assert _solve_pad(51984) == 51984          # below threshold: exact
 
     A = poisson((256, 260), format="csr")      # 66560 >= 65536
     dsa = device_sa_setup(A, grid=(256, 260), dtype=jnp.float32,
                           max_coarse=200)
-    l0 = dsa.hierarchy.levels[0]
-    assert l0.n_pad % 4096 == 0 and l0.n_pad >= l0.n
-    assert l0.A.n_pad == l0.n_pad
+    for lvl in dsa.hierarchy.levels[:-1]:
+        assert lvl.n_pad == lvl.n
+        assert lvl.A.n_pad == lvl.n_pad
+        assert lvl.pre.arrays[0].shape == (lvl.n_pad,)
     b = np.random.default_rng(9).random(A.shape[0])
     res = []
     dsa.solve(b, tol=1e-5, maxiter=40, accel="cg", residuals=res)

@@ -428,7 +428,7 @@ def test_profile_levels():
     A = poisson((32, 32), format="csr")
     ml = pyamg_tpu.smoothed_aggregation_solver(A)
     dml = as_device_solver(ml)
-    prof = profile_levels(dml, k=4, repeats=1)
+    prof = profile_levels(dml, repeats=1)
     assert len(prof) == len(dml.hierarchy.levels)
     assert all(p["t_spmv_s"] > 0 and p["t_presmooth_s"] > 0
                for p in prof)

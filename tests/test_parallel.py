@@ -100,32 +100,31 @@ def test_krylov_dots_partition():
     np.testing.assert_allclose(np.asarray(x), 1.0 / np.asarray(d), atol=1e-5)
 
 
-def test_pallas_halo_spmv_interpret():
-    """Remote-DMA halo kernel NUMERICS under the Pallas TPU interpreter
-    (round-1 verdict weak item 3): simulated RDMA + semaphores on the
-    8-device mesh must equal the ppermute halo SpMV exactly and scipy to
-    f32 rounding."""
+def test_halo_spmv_f32_explicit_mesh():
+    """The ppermute halo SpMV on an Explicit-axis mesh in f32 == scipy to
+    f32 rounding, and == the replicated single-device apply; a padding
+    not divisible by the mesh size is refused."""
     from pyamg_tpu.parallel.dist_spmv import make_halo_dia_spmv
-    from pyamg_tpu.parallel.pallas_halo import make_pallas_halo_spmv
     from pyamg_tpu.sparse import dia_from_scipy
 
     A = poisson((32, 32), format="csr")
     dia = dia_from_scipy(A, dtype=jnp.float32, row_pad=128 * 8)
     mesh = jax.make_mesh((8,), ("x",),
                          axis_types=(jax.sharding.AxisType.Explicit,))
-    spmv_i, place_i = make_pallas_halo_spmv(dia, mesh, interpret=True)
+    spmv, place = make_halo_dia_spmv(dia, mesh)
+    data = jax.device_put(dia.data, NamedSharding(mesh, P(None, "x")))
     x = np.random.default_rng(0).random(dia.n_pad).astype(np.float32)
-    y_interp = np.asarray(spmv_i(dia.data, place_i(x)))
-    spmv_ref, place_ref = make_halo_dia_spmv(dia, mesh)
-    y_ref = np.asarray(spmv_ref(dia.data, place_ref(x)))
-    np.testing.assert_array_equal(y_interp, y_ref)
-    np.testing.assert_allclose(y_interp[: A.shape[0]],
-                               A @ x[: A.shape[0]], atol=1e-5)
-    # halo-sizing validation: a padding not divisible by 128*mesh errors
-    dia_bad = dia_from_scipy(A, dtype=jnp.float32, row_pad=8)
-    if dia_bad.n_pad % (128 * 8) != 0:
-        with pytest.raises(ValueError):
-            make_pallas_halo_spmv(dia_bad, mesh)
+    y = np.asarray(spmv(data, place(x)))
+    np.testing.assert_allclose(y, np.asarray(dia.matvec(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(y[: A.shape[0]], A @ x[: A.shape[0]],
+                               atol=1e-5)
+    dia_bad = dia_from_scipy(A, dtype=jnp.float32, row_pad=1)
+    dia_bad = type(dia_bad)(data=dia_bad.data[:, :1021],
+                            offsets=dia_bad.offsets, shape=(1021, 1021),
+                            nnz=dia_bad.nnz)
+    with pytest.raises(ValueError):
+        make_halo_dia_spmv(dia_bad, mesh)
 
 
 def test_coarse_level_agglomeration():

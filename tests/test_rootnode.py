@@ -119,7 +119,7 @@ def test_blackbox_nonsymmetric():
 
 
 def test_blackbox_device_solve():
-    """device=True: zero-config TPU-engine solve (mixed precision) plus
+    """device=True: zero-config device-engine solve (mixed precision) plus
     device-solver reuse through existing_solver."""
     A = poisson((24, 24), format="csr")
     b = np.random.default_rng(9).random(A.shape[0])

@@ -211,7 +211,7 @@ class TestAutoReorder:
 
     Windows span up to 2*max_w2 columns, so with the production
     max_w2=16384 only n > 32768 can be non-windowable — too slow for a
-    CPU test.  The fixture caps max_w2 at 1024 (the Mosaic minimum), so
+    CPU test.  The fixture caps max_w2 at 1024 (the minimum window), so
     a scrambled 6400-dof FEM matrix is non-windowable while its RCM
     reordering (bandwidth ~2*nx) is."""
 
